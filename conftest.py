@@ -1,8 +1,7 @@
 """Root conftest: opt-in xdist parallelism.
 
-The suite is CPU-bound (interpret-mode Pallas + XLA-CPU compiles); two
-xdist workers keep the default run under the 5-minute inner-loop goal on
-this 2-core host.  Injecting `-n 2` here instead of pytest.ini's addopts
+The suite is CPU-bound (XLA-CPU compiles); two xdist workers keep the
+default run short.  Injecting `-n 2` here instead of pytest.ini's addopts
 keeps pytest-xdist a SOFT dependency: a bare `pytest` without the plugin
 installed (or with `-p no:xdist`) still runs, just serially, and any
 explicit -n/--numprocesses on the command line wins.
@@ -14,7 +13,7 @@ def pytest_load_initial_conftests(early_config, parser, args):
         import xdist  # noqa: F401
     except ImportError:
         return
-    if "no:xdist" in args:          # plugin explicitly disabled
+    if any("no:xdist" in a for a in args):    # plugin explicitly disabled
         return
     for a in args:
         if a == "-n" or a.startswith("-n") or a.startswith("--numprocesses"):

@@ -4,7 +4,7 @@ The reference pipeline evaluates four PyRTlib absorption models — R98, R17,
 R20, R24 (/root/reference/python_src/proc/PyRTlib_processing.py:121-151).
 PyRTlib itself is a NumPy transcription of P. W. Rosenkranz's public Fortran
 line-by-line codes; this module vendors those line tables as plain data so the
-TPU framework has no runtime dependency on PyRTlib.
+framework has no runtime dependency on PyRTlib.
 
 Provenance:
   * Base table: Rosenkranz (1998), "Water vapor microwave continuum

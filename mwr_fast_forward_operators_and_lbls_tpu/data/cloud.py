@@ -19,7 +19,7 @@ LWC: lwc_ad = rho * cp/L * (Gamma_d - Gamma_s) * dz, scaled by
 (1.239 - 0.145 ln(dh)) with dh the height above cloud base; phase split at
 273.15 / 233.15 K (mixed treated as liquid); LWP/IWP column integrals.
 
-Host-side NumPy (data ingest, not a TPU hot path).
+Host-side NumPy (data ingest, not an accelerator hot path).
 """
 
 from __future__ import annotations

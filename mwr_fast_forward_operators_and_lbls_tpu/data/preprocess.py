@@ -274,7 +274,7 @@ def preprocess_campaigns(campaign_specs: list) -> Dataset:
     return concat(parts, dim="time")
 
 
-# -- bridge to the TPU forward operators ------------------------------------
+# -- bridge to the forward operators ----------------------------------------
 
 def profiles_for_forward(ds: Dataset, crop: int = 0) -> dict:
     """Canonical dataset -> forward-operator profile dict (ground -> top).

@@ -141,3 +141,34 @@ def write_mwr_l2(path: str, launch: np.datetime64, product: str = "ta",
                        {"units": "kg m-2"})
     netcdf.write(path, ds)
     return path
+
+
+def forward_stage_dataset(n_time: int = 1000, n_levels: int = hatpro.N_LEVELS,
+                          seed: int = 0) -> Dataset:
+    """Harmonized dataset of `n_time` launches x 2 crops, the input
+    `pipeline.forward_stage` reads, built directly from the demo profiles
+    (`models.lbl.demo_profile`) without raw files: the unit of the forward-
+    stage benchmark."""
+    from ..models import lbl
+
+    profs = {k: np.stack([lbl.demo_profile(n_levels, seed + i)[k]
+                          for i in range(n_time)])
+             for k in ("z", "p", "t", "rho", "lwc")}
+
+    def lev_var(x):              # (B, L) ground -> top  ->  (L, B, 2) TOA -> gnd
+        a = np.asarray(x).T[::-1]
+        return np.repeat(a[:, :, None], 2, axis=2).astype("f4")
+
+    p, t, rho = profs["p"], profs["t"], profs["rho"]
+    e = rho * t / 216.679
+    mr = 1000.0 * 0.622 * e / np.maximum(p - e, 1e-3)
+    air = p * 100.0 / (287.04 * t)
+    liq = profs["lwc"] / 1000.0 / air
+    dims = ("N_Levels", "time", "Crop")
+    ds = Dataset()
+    ds["Level_Pressure"] = (dims, lev_var(p), {"units": "hPa"})
+    ds["Level_Temperature"] = (dims, lev_var(t), {"units": "K"})
+    ds["Level_H2O"] = (dims, lev_var(mr), {"units": "g/kg"})
+    ds["Level_z"] = (dims, lev_var(profs["z"]), {"units": "m"})
+    ds["Level_Liquid"] = (dims, lev_var(liq), {"units": "kg/kg"})
+    return ds

@@ -1,3 +1,7 @@
-"""Evaluation layer: statistics, sky classification, deviations, plots."""
+"""Evaluation layer: statistics, sky classification, deviations, plots.
 
-from . import deviations, report, sky, stats  # noqa: F401
+`plots` and `report` import matplotlib, so they are imported where the
+figure stage needs them and not here: the forward path runs without it.
+"""
+
+from . import deviations, sky, stats  # noqa: F401

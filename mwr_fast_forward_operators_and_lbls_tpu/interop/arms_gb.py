@@ -11,7 +11,7 @@ zeros to NaN (:286-297, :348).
 This module reads and writes that schema with the framework's own NetCDF
 codec, adds the AFGL O3 column the reference interpolates from climatology
 (`get_O3_profile`, :94-99), and provides `simulate_input_nc` — read an
-ARMS-gb input file, run the TPU forward, write `Sim_BT` — so an ARMS-gb
+ARMS-gb input file, run the native forward, write `Sim_BT` — so an ARMS-gb
 deployment can swap `make && ./FWD_Test` for this framework.
 """
 
@@ -131,7 +131,7 @@ def read_sim_bt(path: str, zero_is_missing: bool = True) -> np.ndarray:
 
 def simulate_input_nc(in_path: str, out_path: str, model: str = "R24",
                       include_o3: bool = False) -> np.ndarray:
-    """Act as `FWD_Test`: read an ARMS-gb input NetCDF, run the TPU forward
+    """Act as `FWD_Test`: read an ARMS-gb input NetCDF, run the native forward
     at the file's elevation angle, write the file back with `Sim_BT` filled.
 
     Returns the simulated TBs (N_Channels, N_Times).

@@ -15,7 +15,7 @@ This module implements both directions:
     parser consumes (TB/transmittance blocks, level-transmittance table with
     its >=100-level column quirk, per-channel Jacobian blocks);
   * `parse_output_report` — read reports, ours or RTTOV-gb's;
-  * `simulate_profiles_dat` — the drop-in path: prof_plev.dat in, TPU LBL
+  * `simulate_profiles_dat` — the drop-in path: prof_plev.dat in, native LBL
     forward + autodiff K-matrix, report out.  An existing reference
     deployment can point its `run_apschera.sh` at this and delete Fortran.
 """
@@ -226,7 +226,7 @@ def parse_output_report(path: str, n_levels: int = N_LEVELS,
 def simulate_profiles_dat(in_path: str, out_path: str,
                           n_levels: int = N_LEVELS, model: str = "R24",
                           want_jacobians: bool = True) -> list[RttovResult]:
-    """Act as the RTTOV-gb executable: read prof_plev.dat, run the TPU
+    """Act as the RTTOV-gb executable: read prof_plev.dat, run the native
     forward (+ autodiff K-matrix), write the output report.
 
     The reference's zenith angle is 90 - elevation (RTTOV_gb_processing.py:
@@ -278,7 +278,7 @@ def simulate_profiles_dat(in_path: str, out_path: str,
                                        model, wrt=("t", "rho", "lwc"))
             kppmv = jac_mod.kmatrix_ppmv_from_rho(k["rho"], p, t)
             # (F, L) ground->top -> (L, F) TOA->ground; the p-Jacobian is not
-            # a state variable of the TPU forward (pressure defines the
+            # a state variable of the native forward (pressure defines the
             # grid), reported as zero like clear-sky liquid columns.
             kt = np.asarray(k["t"]).T[::-1]
             kq = np.asarray(kppmv).T[::-1]

@@ -3,7 +3,7 @@
 The capability the reference obtains from two external Fortran executables —
 RTTOV-gb (text protocol, /root/reference/python_src/proc/
 RTTOV_gb_processing.py:167-305) and ARMS-gb (NetCDF protocol,
-ARMS_gb_processing.py:103-212) — re-designed TPU-first.  Both are
+ARMS_gb_processing.py:103-212) — re-designed for an accelerator.  Both are
 "fast models": per-layer optical depths predicted by regression on profile
 predictors, trained offline against a line-by-line model.  Here the LBL
 teacher is in-process (models/lbl.py), so distillation is a single jitted
@@ -20,7 +20,7 @@ from the known pressure/temperature scalings of the O2 60-GHz complex
 (~ rho^2 * theta^n) and cloud liquid (~ lwc * theta^n), times a
 piecewise-linear spline basis over log-pressure that gives the fit vertical
 locality (line-mixing and width regimes change along the column).  The
-result is linear in 18 x 4 = 72 features — one (B*E*L, 72) x (72, C) MXU
+result is linear in 18 x 4 = 72 features — one (B*E*L, 72) x (72, C)
 matmul at inference — and matches the LBL teacher to ~0.002 K RMS / 0.02 K
 max over the HATPRO scan, far inside the reference's +-0.5 K fast-model
 acceptance band (final_zenith_plots.py:160-162).
@@ -55,9 +55,6 @@ class FastConfig:
     elevations_deg: tuple = tuple(hatpro.ELEVATIONS_DEG.tolist())
     teacher_model: str = "R24"
     dtype: str = "float32"
-    # Serve through the lanes-batch layout (levels on sublanes, batch on
-    # lanes, MXU prefix-sum RTE) instead of the vmapped batch-major path.
-    use_lanes: bool = False
     outputs: tuple = ("tb", "tau_total", "t_mr", "trans_level")
 
 
@@ -117,13 +114,14 @@ def init_params(config: FastConfig = FastConfig(), scale: float = 1e-3,
     return {"w": scale * jax.random.normal(key, (N_FEATURES, c), jnp.float32)}
 
 
+@jax.named_scope("fast_regression")
 def predict_extinction(params: dict, p_hpa, t_k, rho_gm3, lwc_gm3):
     """Layer extinction (..., L-1, C) [Np/km]; the single hot matmul.
 
     precision=HIGHEST: extinction spans five decades and the weights carry
-    signed cancellations, so the TPU's default bf16 matmul pass loses ~0.4 %
-    relative — which airmass 13 at 4.2 deg elevation turns into multi-K TB
-    errors.  The full-fp32 pass costs nothing at this size.
+    signed cancellations, so a reduced-precision matmul (bf16 or TF32) loses
+    ~0.4 % relative — which airmass 13 at 4.2 deg elevation turns into
+    multi-K TB errors.  The full-fp32 product costs nothing at this size.
     """
     x = layer_features(p_hpa, t_k, rho_gm3, lwc_gm3)
     alpha = jnp.einsum("...lp,pc->...lc", x, params["w"],
@@ -153,12 +151,6 @@ def fast_forward_batch(params: dict, profiles: dict,
     if lwc is None:
         lwc = jnp.zeros_like(profiles["rho"])
 
-    if config.use_lanes:
-        return _fast_forward_batch_lanes(
-            params, profiles["z"].astype(dtype), profiles["p"].astype(dtype),
-            profiles["t"].astype(dtype), profiles["rho"].astype(dtype),
-            lwc.astype(dtype), config)
-
     def one(zi, pi, ti, ri, li):
         return jax.vmap(
             lambda el: fast_forward_single(params, zi, pi, ti, ri, li, el, config)
@@ -170,53 +162,6 @@ def fast_forward_batch(params: dict, profiles: dict,
         lwc.astype(dtype),
     )
     return {k: v for k, v in out.items() if k in config.outputs}
-
-
-def _fast_forward_batch_lanes(params, z, p, t, rho, lwc,
-                              config: FastConfig) -> dict:
-    """Serving path in the lanes-batch layout.
-
-    One transpose in, then: the 72 features evaluate as (L-1, B) full-tile
-    elementwise ops stacked to (P, L-1, B); the regression is a single
-    (C, P) x (P, (L-1)*B) MXU matmul producing extinction already in the
-    (C, L-1, B) layout the MXU prefix-sum RTE consumes — no relayout
-    anywhere (same reasoning as lbl._forward_batch_lanes).
-    """
-    f = jnp.asarray(config.freqs_ghz, jnp.dtype(config.dtype))
-    b_orig, l = p.shape
-    bp = -(-b_orig // 128) * 128
-    def pad(a):
-        if bp != b_orig:
-            a = jnp.concatenate([a, jnp.broadcast_to(a[-1:], (bp - b_orig, l))])
-        return a
-
-    z, p, t, rho, lwc = pad(z), pad(p), pad(t), pad(rho), pad(lwc)
-    zt, pt, tt = z.T, p.T, t.T                         # (L, Bp) for geom/RTE
-    x = layer_features(p, t, rho, lwc)                 # (Bp, L-1, P)
-    # contraction over P on the MXU; output lands lanes-batch (C, L-1, Bp)
-    alpha_mid = jnp.einsum("blp,pc->clb", x, params["w"],
-                           preferred_element_type=jnp.float32,
-                           precision=jax.lax.Precision.HIGHEST)
-    alpha_mid = jnp.maximum(alpha_mid, 0.0)
-
-    e_hpa = thermo.rho_to_e(rho.T, tt)
-    # Serving path: geometry + RTE in one fused Pallas kernel on the
-    # predicted layer-mean extinction (see ops/pallas/rte_kernel.py); the
-    # level-transmittance profile, when requested, streams from the same
-    # kernel instead of falling back to the XLA formulation.
-    from ..ops.pallas.rte_kernel import forward_lb_fused
-    n = geometry.refractive_index(pt, tt, e_hpa)
-    stacked = forward_lb_fused(
-        config.freqs_ghz, config.elevations_deg, alpha_mid, zt, n, tt,
-        alpha_is_mid=True,
-        want_trans_level="trans_level" in config.outputs)
-    stacked = {k: v for k, v in stacked.items() if k in config.outputs}
-
-    def restore(k, v):
-        if k == "trans_level":
-            return v.transpose(3, 0, 1, 2)[:b_orig]
-        return v.transpose(2, 0, 1)[:b_orig]
-    return {k: restore(k, v) for k, v in stacked.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +228,7 @@ def train_step(params: dict, opt_state, profiles: dict, targets: jax.Array,
                config: FastConfig = FastConfig(),
                optimizer=None):
     """One distillation SGD step.  With batch-sharded `profiles`/`targets`,
-    the gradient all-reduce is the only collective (pure DP over ICI)."""
+    the gradient all-reduce is the only collective (pure data parallelism)."""
     optimizer = optimizer or _default_optimizer()
     loss, grads = jax.value_and_grad(distill_loss)(params, profiles, targets, config)
     updates, opt_state = optimizer.update(grads, opt_state, params)

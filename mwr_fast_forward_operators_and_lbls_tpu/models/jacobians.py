@@ -16,7 +16,6 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..ops import thermo
 from .lbl import LBLConfig, forward_single
@@ -70,10 +69,9 @@ def kmatrix_batch(profiles: dict, config: LBLConfig = LBLConfig(),
     )
 
 
-@functools.partial(jax.jit, static_argnames=("config", "wrt", "fused"))
+@functools.partial(jax.jit, static_argnames=("config", "wrt"))
 def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
-                       wrt: tuple = ("t", "rho", "lwc"),
-                       fused: bool | None = None):
+                       wrt: tuple = ("t", "rho", "lwc")):
     """Batched K-matrix through the diagonal-adjoint decomposition.
 
     `kmatrix_batch` differentiates the whole forward operator with `jacrev`
@@ -82,31 +80,24 @@ def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
 
       1. absorption is local:  alpha[f, l] depends only on the atmospheric
          state at level l, so d(alpha)/d(x) is *diagonal* over levels — ONE
-         dual-number pass of the fused Pallas kernel
-         (total_absorption_fused_tangents) returns alpha and both
-         elementwise partial fields (dT, drho) with the per-point setup
-         computed once in VMEM; d(alpha)/d(lwc) is analytic (Rayleigh
-         absorption is linear in LWC);
+         `jax.linearize` of the absorption with an all-ones tangent per
+         variable returns every elementwise partial field; d(alpha)/d(lwc)
+         is analytic (Rayleigh absorption is linear in LWC);
       2. the RTE adjoint is CLOSED-FORM: `rte.downwelling_tb_adjoint`
          returns the exact per-(b, e, f) adjoints G = dTB/dalpha, the
          direct Planck term dTB/dt, and dTB/dds from one vectorized
-         suffix-sum pass (measured ~6x cheaper than reverse-mode AD
-         through the cumulative-opacity scan); the geometry-path direct
-         terms then come from F cheap geometry VJPs per (b, e).
+         suffix-sum pass, instead of reverse-mode AD through the
+         cumulative-opacity scan; the geometry-path direct terms follow
+         from the geometry Jacobian's closed-form sparsity.
 
     The chain rule assembles
 
         K_x[e, f, l] = G[e, f, l] * dalpha[f, l]/dx[l]  +  D_x[e, f, l]
 
     where D_x collects the direct (non-absorption) paths: Planck source (t)
-    and refraction-bent geometry (t, rho, p).  Measured (v5e, B=256, E=10,
-    wrt=(t, rho, lwc)): 0.62-0.70 ms = 2.2-2.6x a directly-measured
-    fused-kernel forward (bench.py `kmatrix_x_forward`; round 3: 1.24 ms /
-    5.2x), vs ~F x len(wrt) full backward passes for `kmatrix_batch`.  The fused tangent path agrees with the XLA linearize
-    fallback (`fused=False`, used automatically on CPU or when wrt includes
-    "p") to <~2 % worst-point relative — the far-term series truncation
-    differentiates slightly differently than the exact Lorentzian it
-    approximates; the value field itself matches to ~1e-6.
+    and refraction-bent geometry (t, rho, p).  The cost is a few forward-
+    shaped passes, against ~F x len(wrt) full backward passes for
+    `kmatrix_batch`.
 
     This replaces the role of RTTOV-gb's hand-written Fortran K/adjoint code
     (/root/reference/python_src/proc/RTTOV_gb_processing.py:287-301) with the
@@ -133,32 +124,12 @@ def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
     b_n, l_n = t.shape
     f_n, e_n = f.shape[0], elevs.shape[0]
 
-    # -- 1) absorption + its elementwise partials.
-    #
-    #    Fast path (default on TPU, wrt within {t, rho, lwc}): ONE
-    #    dual-number pass of the fused Pallas kernel returns alpha AND both
-    #    tangent fields with the per-point setup (all the transcendentals)
-    #    computed once and shared in VMEM
-    #    (ops/pallas/absorption_kernel.py::total_absorption_fused_tangents).
-    #
-    #    Fallback (CPU, or wrt includes "p"): `jax.linearize` of the XLA
+    # -- 1) absorption + its elementwise partials: `jax.linearize` of the
     #    absorption with inputs kept (L, B) and the frequency broadcast
-    #    INSIDE, so the setup is amortized over F in the primal and in each
-    #    tangent.  (A broadcast-(F,L,B)-input VJP obtains all partials in
-    #    one backward pass but re-evaluates the setup per frequency —
-    #    measured ~40 % slower overall at B=256.)
+    #    INSIDE, so the per-point setup is amortized over F in the primal
+    #    and in each tangent.
     tT, rhoT, lwcT, pT = t.T, rho.T, lwc.T, p.T              # (L, B)
-    if fused is None:
-        fused = (jax.default_backend() == "tpu"
-                 and set(wrt) <= {"t", "rho", "lwc"})
-    if fused:
-        # Fully fused lanes pipeline: ONE dual-number absorption pass, then
-        # ONE adjoint+assembly Pallas kernel per requested variable
-        # (ops/pallas/adjoint_kernel.py) — the XLA closed-form adjoint
-        # below materializes ~12 (B, E, F, L) intermediates in HBM and was
-        # the dominant K-matrix stage (bench.py kmatrix_decomp_ms).
-        return _kmatrix_batch_fused_lanes(
-            z, p, t, rho, lwc, config, wrt, tT, rhoT, lwcT, pT)
+
     def absorb(tt, rr, ww, pp):
         return total_absorption(f[:, None, None], pp[None], tt[None],
                                 rr[None], ww[None], model=config.model)
@@ -185,7 +156,7 @@ def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
     #    exact dTB/d(alpha, t, ds) for all (b, e, f) in one vectorized
     #    closed-form pass (rte.downwelling_tb_adjoint) — autodiff through
     #    the cumulative-opacity scan materializes large reverse-mode
-    #    intermediates and measured ~6x slower at this size.
+    #    intermediates.
     def geo_fn(ti, pi, ri, zi, el):
         return geometry.slant_path_lengths(
             zi, pi, ti, thermo.rho_to_e(ri, ti), el)         # (L-1,)
@@ -249,116 +220,6 @@ def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
     return out
 
 
-def _kmatrix_batch_fused_lanes(z, p, t, rho, lwc, config, wrt,
-                               tT, rhoT, lwcT, pT):
-    """The all-Pallas K-matrix pipeline in the lanes-batch layout.
-
-    Stage 1: one dual-number pass of the fused absorption kernel gives
-    alpha and its elementwise (dT, drho) tangent fields.  Stage 2: ONE
-    adjoint+assembly kernel per requested variable
-    (ops/pallas/adjoint_kernel.py) computes the closed-form RTE adjoint,
-    multiplies in the tangent field, and folds the Planck and refraction
-    direct paths — all inside VMEM, writing only the assembled K slices.
-    The batch-major public layout is restored at the end (the only
-    relayouts in the path).
-    """
-    from ..constants import physics as phys
-    from ..ops import geometry
-    from ..ops.pallas import absorption_kernel as ak
-    from ..ops.pallas.adjoint_kernel import (kmatrix_assembled_lb,
-                                             kmatrix_assembled_rho_lwc_lb)
-
-    b_n, l_n = t.shape
-    f_n = len(config.freqs_ghz)
-    elevs = jnp.asarray(config.elevations_deg, t.dtype)
-
-    lanes = ak.LANES
-    bp = -(-b_n // lanes) * lanes
-
-    def padb(a):                                 # (..., B) -> (..., Bp)
-        if bp == b_n:
-            return a
-        pad = jnp.broadcast_to(a[..., -1:], a.shape[:-1] + (bp - b_n,))
-        return jnp.concatenate([a, pad], axis=-1)
-
-    tTp, rhoTp, lwcTp, pTp, zTp = map(padb, (tT, rhoT, lwcT, pT, z.T))
-
-    n = l_n * bp
-    block = ak.BLOCK_ROWS * ak.LANES
-    n_pad = -(-n // block) * block
-
-    def flat(a, fill):
-        v = a.reshape(-1)
-        if n_pad != n:
-            v = jnp.concatenate([v, jnp.full(n_pad - n, fill, v.dtype)])
-        return v
-
-    freqs = tuple(float(x) for x in np.asarray(config.freqs_ghz))
-    a_fn, da_t, da_rho = ak.total_absorption_fused_tangents(
-        freqs, flat(pTp, 500.0), flat(tTp, 250.0), flat(rhoTp, 0.1),
-        flat(lwcTp, 0.0), config.model)
-
-    def lb(x):                                   # (F, Npad) -> (F, L, Bp)
-        return x[:, :n].reshape(f_n, l_n, bp)
-
-    alpha_lb = lb(a_fn)
-    da = {}
-    if "t" in wrt:
-        da["t"] = lb(da_t)
-    if "rho" in wrt:
-        da["rho"] = lb(da_rho)
-    if "lwc" in wrt:
-        # Cloud absorption is exactly linear in LWC (Rayleigh regime):
-        # d(alpha)/d(lwc) is liquid_absorption at unit content.
-        from ..ops.absorption import liquid_absorption
-        f = jnp.asarray(config.freqs_ghz, t.dtype)
-        da["lwc"] = jnp.broadcast_to(
-            liquid_absorption(f[:, None, None], tTp[None],
-                              jnp.ones_like(tTp)[None]), alpha_lb.shape)
-
-    # geometry, directly in lanes: paths, sensitivities, refractivity
-    # tangents (all elevation-stacked small tensors)
-    e_hpa = thermo.rho_to_e(rhoTp, tTp)
-    ds = jax.vmap(lambda el: geometry.slant_path_lengths_lb(
-        zTp, pTp, tTp, e_hpa, el))(elevs)        # (E, L-1, Bp)
-
-    def n_of(ti, ri, pi):
-        return geometry.refractive_index(pi, ti, thermo.rho_to_e(ri, ti))
-
-    ones = jnp.ones_like(tTp)
-    n_lev, dn_t = jax.jvp(lambda v: n_of(v, rhoTp, pTp), (tTp,), (ones,))
-    _, dn_rho = jax.jvp(lambda v: n_of(tTp, v, pTp), (rhoTp,), (ones,))
-    dds_dnl, dds_dk = geometry.slant_path_sensitivities(
-        zTp.T[:, None], n_lev.T[:, None], elevs[None, :])   # (Bp, E, L-1)
-    dds_dnl = dds_dnl.transpose(1, 2, 0)         # (E, L-1, Bp)
-    dds_dk = dds_dk.transpose(1, 2, 0)
-    r0cos = ((phys.EARTH_RADIUS + zTp[0])[None, :]
-             * jnp.cos(jnp.deg2rad(elevs))[:, None])        # (E, Bp)
-    dn = {"t": dn_t, "rho": dn_rho}
-
-    out = {}
-    if set(wrt) == {"t", "rho", "lwc"}:
-        # production configuration in TWO adjoint passes: t alone (it
-        # needs the Planck-derivative scratch), rho+lwc sharing one core
-        k_t = kmatrix_assembled_lb(freqs, "t", alpha_lb, da["t"], ds,
-                                   tTp, dds_dnl, dds_dk, dn["t"], r0cos)
-        k_r, k_l = kmatrix_assembled_rho_lwc_lb(
-            freqs, alpha_lb, da["rho"], da["lwc"], ds, tTp, dds_dnl,
-            dds_dk, dn["rho"], r0cos)
-        for name, k in zip(("t", "rho", "lwc"), (k_t, k_r, k_l)):
-            out[name] = k.transpose(3, 0, 1, 2)[:b_n]       # (B, E, F, L)
-        return out
-    for name in wrt:
-        if name in ("t", "rho"):
-            k = kmatrix_assembled_lb(freqs, name, alpha_lb, da[name], ds,
-                                     tTp, dds_dnl, dds_dk, dn[name], r0cos)
-        else:
-            k = kmatrix_assembled_lb(freqs, name, alpha_lb, da[name], ds,
-                                     tTp)
-        out[name] = k.transpose(3, 0, 1, 2)[:b_n]           # (B, E, F, L)
-    return out
-
-
 def kmatrix_ppmv_from_rho(k_rho, p_hpa, t_k):
     """Convert dTB/d(rho [g/m^3]) (..., F, L) to dTB/d(ppmv) via the chain
     rule through e = rho*Rv*T (thermo.rho_to_e) and ppmv = 1e6 * e/(p-e)."""
@@ -398,9 +259,8 @@ def kmatrix_fast_adjoint_single(params, z_m, p_hpa, t_k, rho_gm3, lwc_gm3,
     """Closed-form fast-operator K: ALL (elevation, channel) rows at once.
 
     `kmatrix_fast_single` runs `jacrev` through the fast forward — E*C
-    backward passes per profile, which made each OEM Gauss-Newton iteration
-    ~100x the cost of a forward (BENCH_r04 oem_retrieval_ms_per_profile
-    3.84 ms vs 0.4 us/profile fast serving).  The fast operator has the
+    backward passes per profile, so each OEM Gauss-Newton iteration cost
+    E*C times a forward and more.  The fast operator has the
     same structure the LBL fast-K path exploits (`kmatrix_batch_fast`):
 
       1. the regression extinction is LAYER-LOCAL — alpha_mid[l] depends

@@ -1,6 +1,6 @@
 """Batched line-by-line forward operator: profiles -> brightness temperatures.
 
-This is the TPU-native replacement for the reference's hot loop — the
+This replaces the reference's hot loop — the
 sequential `for time x crop x elevation x model: rte.execute()` nest in
 /root/reference/python_src/proc/PyRTlib_processing.py:99-151 ("Dieser Code
 ist sehr langsam").  Here the whole nest is one jitted, vmapped computation:
@@ -37,9 +37,6 @@ class LBLConfig:
     elevations_deg: tuple = tuple(hatpro.ELEVATIONS_DEG.tolist())
     include_liquid: bool = True
     dtype: str = "float32"
-    # Use the fused Pallas absorption kernel + lanes-batch RTE (interpreted on
-    # CPU; the pure-XLA path is the reference implementation).
-    use_pallas: bool = False
     # Which outputs to materialize.  trans_level is (B, E, F, L) — by far the
     # largest output and its layout restoration dominates the forward wall
     # time, so throughput-oriented callers should ask only for what they need.
@@ -113,11 +110,6 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig()):
                             jnp.asarray(clim["o3_ppmv"], dtype))
         o3 = o3.astype(dtype)
 
-    # All nine absorption models (VVW and qSD line shapes, first- and
-    # second-order O2 mixing) and the optional O3 term run the fused path.
-    if config.use_pallas:
-        return _forward_batch_lanes(z, p, t, rho, lwc, f, config, o3=o3)
-
     def one(zi, pi, ti, ri, li, oi=None):
         def at_elev(el):
             return forward_single(zi, pi, ti, ri, li, f, el, config.model,
@@ -129,56 +121,6 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig()):
     else:
         out = jax.vmap(one)(z, p, t, rho, lwc, o3)
     return {k: v for k, v in out.items() if k in config.outputs}
-
-
-def _forward_batch_lanes(z, p, t, rho, lwc, f, config: LBLConfig, o3=None):
-    """TPU fast path: fused Pallas absorption + lanes-batch geometry/RTE.
-
-    Profiles are transposed ONCE to the (L, B) "lanes-batch" layout (levels on
-    sublanes, profile batch on lanes); every subsequent reshape is
-    tile-preserving and every op runs on full (8, 128) register tiles.  This
-    is where the XLA-layout path loses a factor ~300: materializing alpha as
-    (B, F, L) with a 180-element minor axis forces relayouts that dwarf the
-    actual physics.
-    """
-    from ..ops.pallas.absorption_kernel import (BLOCK_ROWS, LANES,
-                                                absorption_lb_fused)
-
-    b, l = p.shape
-    # Pad the batch so B is lane-aligned and L*B divides the kernel block.
-    bp = -(-b // LANES) * LANES
-    while (l * bp) % (BLOCK_ROWS * LANES):
-        bp += LANES
-    def prep(a):
-        if bp != b:
-            a = jnp.concatenate([a, jnp.broadcast_to(a[-1:], (bp - b, l))])
-        return a.T  # (L, Bp)
-
-    zt, pt, tt, rt, wt = prep(z), prep(p), prep(t), prep(rho), prep(lwc)
-    alpha = absorption_lb_fused(config.freqs_ghz, pt, tt, rt, wt,
-                                config.model,
-                                o3=None if o3 is None else prep(o3))
-    # alpha: (F, L, Bp)
-    e_hpa = thermo.rho_to_e(rt, tt)
-
-    # Geometry + RTE in one kernel; only the refractive index (one
-    # elevation-independent elementwise pass) is computed in XLA.  When the
-    # (E, F, L, B) transmittance profile is requested it streams straight
-    # from the kernel's in-VMEM scan — its HBM write is the only extra cost.
-    from ..ops.pallas.rte_kernel import forward_lb_fused
-    n = geometry.refractive_index(pt, tt, e_hpa)
-    stacked = forward_lb_fused(
-        config.freqs_ghz, config.elevations_deg, alpha, zt, n, tt,
-        want_trans_level="trans_level" in config.outputs)
-    stacked = {k: v for k, v in stacked.items() if k in config.outputs}
-    # Back to the public (B, E, F[, L]) layout; these transposes restore the
-    # batch-major convention and are the only relayouts in the whole path —
-    # trans_level alone is ~E*F*L*B floats, which is why it is opt-in.
-    def restore(k, v):
-        if k == "trans_level":
-            return v.transpose(3, 0, 1, 2)[:b]
-        return v.transpose(2, 0, 1)[:b]
-    return {k: restore(k, v) for k, v in stacked.items()}
 
 
 def forward_all_models(profiles: dict, config: LBLConfig = LBLConfig(),

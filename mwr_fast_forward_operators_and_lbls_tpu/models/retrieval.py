@@ -6,7 +6,7 @@ the instruments' own neural-network software (MWR L2 files,
 /root/reference/python_src/preproc/MWR_read_in_module.py:286-363); the
 native framework closes that loop itself: Gauss-Newton optimal estimation
 (Rodgers 2000) inverting observed multi-elevation TBs for (T, rho) profiles,
-with the forward model and its exact autodiff K-matrix both running on-TPU.
+with the forward model and its exact autodiff K-matrix both running on the accelerator.
 
 State vector: x = [T (L), ln rho (L)] on the fixed level grid — humidity in
 log space, the standard 1D-Var choice: positivity is structural (no clamping
@@ -36,6 +36,10 @@ import jax
 import jax.numpy as jnp
 
 from . import fast as fast_mod
+
+# fp32 products of the solve at full precision: a GPU may otherwise run
+# them in TF32 (~3 decimal digits), which the Gauss-Newton update amplifies.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @dataclass(frozen=True)
@@ -123,16 +127,17 @@ def retrieve(params: dict, tb_obs, z_m, p_hpa, t_prior, rho_prior,
 
     def _m_form_solve(k, rhs):
         """Cholesky-solve (K Sa K^T + Se) u = rhs; return Sa K^T u."""
-        sa_kt = sa @ k.T                             # (2L, m)
-        s = k @ sa_kt + jnp.diag(se_diag)            # (m, m), SPD
+        sa_kt = jnp.matmul(sa, k.T, precision=HIGHEST)          # (2L, m)
+        s = jnp.matmul(k, sa_kt, precision=HIGHEST) + jnp.diag(se_diag)
         c, low = jax.scipy.linalg.cho_factor(s, lower=True)
         return sa_kt, jax.scipy.linalg.cho_solve((c, low), rhs)
 
     def step(x, _):
         f = fwd(x)
         k = jac(x)                                   # (m, 2L)
-        sa_kt, u = _m_form_solve(k, y - f + k @ (x - xa))
-        x_new = xa + sa_kt @ u
+        sa_kt, u = _m_form_solve(
+            k, y - f + jnp.matmul(k, x - xa, precision=HIGHEST))
+        x_new = xa + jnp.matmul(sa_kt, u, precision=HIGHEST)
         cost = jnp.mean((y - f) ** 2)
         return x_new, cost
 
@@ -142,7 +147,7 @@ def retrieve(params: dict, tb_obs, z_m, p_hpa, t_prior, rho_prior,
     k = jac(x)
     # averaging kernel A = Sa K^T (K Sa K^T + Se)^-1 K; dofs = tr(A)
     sa_kt, u = _m_form_solve(k, k)                   # u: (m, 2L)
-    dofs = jnp.trace(sa_kt @ u)
+    dofs = jnp.trace(jnp.matmul(sa_kt, u, precision=HIGHEST))
     return {
         "t": x[:l],
         "rho": jnp.maximum(jnp.exp(x[l:]) - config.rho_floor, 0.0),

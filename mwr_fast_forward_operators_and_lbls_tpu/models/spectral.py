@@ -6,15 +6,15 @@ convolved with channel spectral response functions.  The reference's LBL
 only ever evaluates the 14 channel centers (PyRTlib_processing.py:87-88);
 this module is the native high-res capability.
 
-Layout: frequencies ride the lane axis end-to-end — the spectral Pallas
-kernel emits alpha (points, F) tiles, and the RTE runs in a (B, L, F)
-layout where the level-axis prefix sum is again a lower-triangular MXU
-matmul and every elementwise op vectorizes over frequency lanes.  The grid
-is processed in frequency chunks to bound HBM residency, so a 50k-point
-spectrum streams through in ~25 chunks of 2048.
+Layout: frequency is the minor axis end to end.  Absorption is the same
+XLA `total_absorption` the channel forward uses, broadcast over a chunk of
+the grid as (B, L, Fc); the RTE runs in (B, L, Fc) with the level-axis
+prefix sum as `jnp.cumsum`.  The grid is processed in frequency chunks to
+bound device-memory residency, so a 50k-point spectrum streams through in
+~25 chunks of 2048.
 
-For K-matrices of channel TBs use models/jacobians.py (the channel path is
-fully differentiable); the spectral kernel itself carries no autodiff rules.
+For K-matrices of channel TBs use models/jacobians.py; the spectral path is
+differentiable too, but nothing here is tuned for reverse mode.
 """
 
 from __future__ import annotations
@@ -26,21 +26,18 @@ import jax.numpy as jnp
 
 from ..constants import physics as phys
 from ..ops import geometry, rte, thermo
-from ..ops.pallas.spectral_kernel import FLANES, ROWS, absorption_spectral
+from ..ops.absorption import total_absorption
 
 
-def _rte_freq_lanes(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
-    """Downwelling TB with frequency on lanes.
+def _rte_freq_minor(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
+    """Downwelling TB with frequency on the minor axis.
 
     alpha: (B, L, F); ds_km: (B, L-1); t_k: (B, L); f_ghz: (F,).
     Returns tb (B, F), tau_total (B, F).
     """
     alpha_mid = 0.5 * (alpha[:, :-1] + alpha[:, 1:])
     dtau = alpha_mid * ds_km[:, :, None]                 # (B, L-1, F)
-    lm1 = dtau.shape[1]
-    tril = jnp.tril(jnp.ones((lm1, lm1), dtau.dtype))
-    ctau = jnp.einsum("kl,blf->bkf", tril, dtau,
-                      precision=jax.lax.Precision.HIGHEST)
+    ctau = jnp.cumsum(dtau, axis=1)
     e_ctau = jnp.exp(-ctau)
     trans_below = jnp.concatenate(
         [jnp.ones_like(e_ctau[:, :1]), e_ctau[:, :-1]], axis=1)
@@ -56,34 +53,23 @@ def _rte_freq_lanes(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
     return tb, tau_total
 
 
-@functools.partial(jax.jit, static_argnames=("model", "elevations_deg",
-                                             "f_range"))
-def _forward_chunk(profiles, f_chunk, elevations_deg, model, f_range=None):
+@functools.partial(jax.jit, static_argnames=("model", "elevations_deg"))
+def _forward_chunk(profiles, f_chunk, elevations_deg, model):
     p, t, rho = profiles["p"], profiles["t"], profiles["rho"]
     z = profiles["z"]
     lwc = profiles.get("lwc")
     if lwc is None:
         lwc = jnp.zeros_like(rho)
-    b, l = p.shape
-    n = b * l
-    n_pad = -(-n // ROWS) * ROWS
-
-    def flat(a, fill):
-        v = a.reshape(-1).astype(jnp.float32)
-        if n_pad != n:
-            v = jnp.concatenate([v, jnp.full(n_pad - n, fill, jnp.float32)])
-        return v
-
-    alpha = absorption_spectral(
-        f_chunk, flat(p, 500.0), flat(t, 250.0), flat(rho, 0.1),
-        flat(lwc, 0.0), model, f_range)[:n].reshape(b, l, -1)
+    f = f_chunk.astype(jnp.float32)
+    alpha = total_absorption(f, p[..., None], t[..., None], rho[..., None],
+                             lwc[..., None], model=model)  # (B, L, Fc)
 
     e_hpa = thermo.rho_to_e(rho, t)
     tbs, taus = [], []
     for el in elevations_deg:
         ds = jax.vmap(lambda zi, pi, ti, ei: geometry.slant_path_lengths(
             zi, pi, ti, ei, el))(z, p, t, e_hpa)          # (B, L-1)
-        tb, tau = _rte_freq_lanes(alpha, ds, t, f_chunk)
+        tb, tau = _rte_freq_minor(alpha, ds, t, f)
         tbs.append(tb)
         taus.append(tau)
     return jnp.stack(tbs, axis=1), jnp.stack(taus, axis=1)  # (B, E, Fc)
@@ -93,36 +79,21 @@ def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
                      model: str = "R24", freq_chunk: int = 2048) -> dict:
     """Monochromatic TB spectra: (B, L) profiles x (F,) grid -> (B, E, F).
 
-    Streams the frequency grid through the spectral kernel in chunks of
-    `freq_chunk` (rounded up to lane multiples); peak HBM residency is one
-    (B, L, chunk) alpha block regardless of F.
+    Streams the frequency grid in chunks of `freq_chunk`; the last chunk is
+    padded to the same width (one compiled program for every chunk), so
+    peak device residency is one (B, L, chunk) absorption block whatever F.
     """
-    import numpy as np
-
-    # static whole-GHz bounds of the FULL grid: one promise for every
-    # chunk (per-chunk bounds would be tighter but cost one kernel compile
-    # per chunk), rounded so similar grids share the jit cache.  The
-    # spectral kernel folds Clough masks / prunes out-of-range lines /
-    # deepens the O2 divide merge against it (ops/pallas/spectral_kernel).
-    # Under a trace (e.g. the shard_map spectral path) the values are not
-    # concrete — fall back to the fully runtime-masked kernel.
-    if isinstance(f_ghz, jax.core.Tracer):
-        f_range = None
-        f = f_ghz.astype(jnp.float32)
-    else:
-        f_np = np.asarray(f_ghz, np.float32)
-        f_range = (float(np.floor(f_np.min())), float(np.ceil(f_np.max())))
-        f = jnp.asarray(f_np)
+    f = jnp.asarray(f_ghz, jnp.float32)
     nf = f.shape[0]
     elevs = tuple(float(e) for e in elevations_deg)
-    chunk = max(FLANES, (freq_chunk // FLANES) * FLANES)
+    chunk = min(freq_chunk, nf)
     tbs, taus = [], []
     for start in range(0, nf, chunk):
         fc = f[start:start + chunk]
-        npad = -(-fc.shape[0] // FLANES) * FLANES - fc.shape[0]
+        npad = chunk - fc.shape[0]
         if npad:
             fc = jnp.concatenate([fc, jnp.broadcast_to(fc[-1:], (npad,))])
-        tb, tau = _forward_chunk(profiles, fc, elevs, model, f_range)
+        tb, tau = _forward_chunk(profiles, fc, elevs, model)
         good = tb.shape[-1] - npad
         tbs.append(tb[..., :good])
         taus.append(tau[..., :good])
@@ -130,7 +101,7 @@ def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
 
 
 def srf_convolve(tb_mono, weights):
-    """Channel-SRF convolution (one MXU matmul): (..., F) x (C, F) -> (..., C)."""
+    """Channel-SRF convolution (one matmul): (..., F) x (C, F) -> (..., C)."""
     wsum = jnp.sum(weights, axis=-1, keepdims=True)
     return jnp.einsum("...f,cf->...c", tb_mono,
                       weights / jnp.maximum(wsum, 1e-30),

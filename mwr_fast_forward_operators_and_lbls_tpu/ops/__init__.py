@@ -1,3 +1,3 @@
-"""Tier-1 physics ops: thermo, absorption, geometry, RTE, Pallas kernels."""
+"""Tier-1 physics ops: thermo, absorption, geometry, RTE."""
 
 from . import absorption, geometry, rte, thermo  # noqa: F401

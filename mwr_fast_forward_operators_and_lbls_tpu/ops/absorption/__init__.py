@@ -1,5 +1,6 @@
 """Gas + hydrometeor absorption coefficients (the LBL hot path)."""
 
+import jax
 import jax.numpy as jnp
 
 from ...constants.h2o_lines import H2O_MODELS
@@ -15,6 +16,7 @@ from .o3 import o3_absorption  # noqa: F401
 ABSORPTION_MODELS = tuple(H2O_MODELS)
 
 
+@jax.named_scope("absorption")    # names its fusions in traces and HLO
 def total_absorption(f_ghz, p_hpa, t_k, rho_gm3, lwc_gm3=None, model: str = "R24",
                      o3_ppmv=None):
     """Total atmospheric absorption [Np/km] for one named model family.

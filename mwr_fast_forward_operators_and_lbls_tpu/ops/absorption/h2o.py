@@ -23,8 +23,8 @@ from ...constants.h2o_lines import H2O_MODELS, H2OModel
 # and with x = u^2 that average is exactly (2/sqrt(pi)) * sum_i w_i/(C+G2*x_i)
 # on the alpha=1/2 Laguerre nodes.  16 nodes reproduce the profile to
 # ~2.5e-13 relative over the full atmospheric (G0, G2, df) range — all in
-# real arithmetic (no complex error function), so it vmaps/fuses on TPU like
-# any other elementwise op.
+# real arithmetic (no complex error function), so it vmaps and fuses like any
+# other elementwise op.
 _GL_X = np.array([
     0.14739918461631113, 0.5909018112431884, 1.3344875116145762,
     2.3850115520046535, 3.752567873874768, 5.451062939568397,

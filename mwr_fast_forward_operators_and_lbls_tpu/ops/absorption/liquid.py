@@ -6,7 +6,7 @@ droplets much smaller than the wavelength (no scattering) — the same
 assumption the whole reference pipeline makes (non-scattering RTE).
 
 Implemented with explicit real/imaginary arithmetic (no complex dtype) so the
-same expression drops into Pallas kernels unchanged.
+same expression also fits a hand-written kernel unchanged.
 """
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ Everything is closed-form per layer (no iteration), fully vectorized, and
 differentiable, so the K-matrix sees d(path)/d(T,q) through the refractivity.
 """
 
+import jax
 import jax.numpy as jnp
 
 from ..constants import physics as phys
@@ -31,6 +32,7 @@ def refractive_index(p_hpa, t_k, e_hpa):
     return 1.0 + 1e-6 * refractivity(p_hpa, t_k, e_hpa)
 
 
+@jax.named_scope("geometry")
 def slant_path_lengths(z_m, p_hpa, t_k, e_hpa, elevation_deg):
     """Per-layer slant path lengths [km] from ground to top.
 
@@ -71,34 +73,6 @@ def slant_path_lengths(z_m, p_hpa, t_k, e_hpa, elevation_deg):
     seg_bot = jnp.sqrt(jnp.maximum((r_bot - rk) * (r_bot + rk), 0.0))
     # dz from z directly — (R_E + z) quantizes layer thicknesses to the
     # ~0.5 m float32 ulp of the Earth radius.
-    dz = z[1:] - z[:-1]
-    ds_m = dz * (r_top + r_bot) / jnp.maximum(seg_top + seg_bot, 1.0)
-    return ds_m * 1e-3
-
-
-def slant_path_lengths_lb(z_m, p_hpa, t_k, e_hpa, elevation_deg):
-    """`slant_path_lengths` in the lanes-batch layout.
-
-    Args:
-      z_m, p_hpa, t_k, e_hpa: (L, B) level arrays, ground -> top along axis 0,
-        profile batch on the minor (lane) axis.
-      elevation_deg: scalar elevation angle [deg].
-
-    Returns:
-      ds_km: (L-1, B).
-    """
-    z = jnp.asarray(z_m)
-    n = refractive_index(p_hpa, t_k, e_hpa)
-    r = phys.EARTH_RADIUS + z
-
-    el = jnp.deg2rad(elevation_deg)
-    k = n[:1] * r[:1] * jnp.cos(el)          # (1, B) Snell invariant [m]
-
-    n_layer = 0.5 * (n[:-1] + n[1:])
-    rk = k / n_layer
-    r_bot, r_top = r[:-1], r[1:]
-    seg_top = jnp.sqrt(jnp.maximum((r_top - rk) * (r_top + rk), 0.0))
-    seg_bot = jnp.sqrt(jnp.maximum((r_bot - rk) * (r_bot + rk), 0.0))
     dz = z[1:] - z[:-1]
     ds_m = dz * (r_top + r_bot) / jnp.maximum(seg_top + seg_bot, 1.0)
     return ds_m * 1e-3

@@ -75,6 +75,7 @@ def _emission_factors(dtau):
     return g_bot, g_top
 
 
+@jax.named_scope("rte")
 def downwelling_tb(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
     """Downwelling brightness temperature at the observer (ground) level.
 
@@ -96,6 +97,7 @@ def downwelling_tb(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
     return downwelling_tb_from_dtau(dtau, t_k, f_ghz, t_cosmic)
 
 
+@jax.named_scope("rte")
 def downwelling_tb_from_dtau(dtau, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
     """Downwelling TB given per-layer slant opacities directly.
 
@@ -132,125 +134,6 @@ def downwelling_tb_from_dtau(dtau, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
         atm / jnp.maximum(-jnp.expm1(-tau_total), 1e-10), f_ghz
     )
     return {"tb": tb, "tau_total": tau_total, "trans_level": trans_level, "t_mr": t_mr}
-
-
-def downwelling_tb_lb(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
-    """Downwelling TB in the TPU "lanes-batch" layout.
-
-    Identical physics to `downwelling_tb`, but levels live on the second-minor
-    axis and the profile batch on the minor (lane) axis, so every op runs on
-    fully-populated (8, 128) register tiles and no relayout is ever needed
-    between the fused absorption kernel and the RTE.
-
-    Args:
-      alpha: (F, L, B) absorption [Np/km], levels ground -> top.
-      ds_km: (L-1, B) slant path lengths [km].
-      t_k:   (L, B) level temperatures [K].
-      f_ghz: (F,) frequencies [GHz].
-
-    Returns:
-      dict with tb/tau_total/t_mr (F, B) and trans_level (F, L, B).
-    """
-    f = f_ghz[:, None, None]
-    dtau = 0.5 * (alpha[:, :-1] + alpha[:, 1:]) * ds_km[None]   # (F, L-1, B)
-    ctau = jnp.cumsum(dtau, axis=-2)
-    tau_below = ctau - dtau
-    tau_total = ctau[:, -1]                                      # (F, B)
-    trans_below = jnp.exp(-tau_below)
-    trans_level = jnp.exp(
-        -jnp.concatenate([jnp.zeros_like(dtau[:, :1]), ctau], axis=-2)
-    )                                                            # (F, L, B)
-
-    b = planck_tb(t_k[None], f)                                  # (F, L, B)
-    g_bot, g_top = _emission_factors(dtau)
-    layer_emission = g_bot * b[:, :-1] + g_top * b[:, 1:]
-
-    atm = jnp.sum(layer_emission * trans_below, axis=-2)         # (F, B)
-    fb = f_ghz[:, None]
-    cosmic = planck_tb(t_cosmic, fb) * jnp.exp(-tau_total)
-    tb = inverse_planck_tb(atm + cosmic, fb)
-    t_mr = inverse_planck_tb(
-        atm / jnp.maximum(-jnp.expm1(-tau_total), 1e-10), fb
-    )
-    return {"tb": tb, "tau_total": tau_total, "trans_level": trans_level,
-            "t_mr": t_mr}
-
-
-def downwelling_tb_lb_multi(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC,
-                            want_trans_level=True):
-    """Multi-elevation lanes-batch downwelling RTE with shared terms hoisted.
-
-    The Planck source and the layer-mean absorption are elevation-independent;
-    computing them once (instead of per elevation) and deriving the
-    below-layer transmittance by shifting exp(-cumsum) (instead of a second
-    cumsum/exp) keeps the per-elevation cost to one multiply chain, one
-    cumsum, and two exps — the minimum this formulation needs.
-
-    Args:
-      alpha: (F, L, B) absorption [Np/km], levels ground -> top.
-      ds_km: (E, L-1, B) slant path lengths per elevation [km].
-      t_k:   (L, B) level temperatures [K].
-      f_ghz: (F,) frequencies [GHz].
-      want_trans_level: skip materializing the (E, F, L, B) transmittance
-        profile when the caller doesn't ask for it.
-
-    Returns:
-      dict with tb/tau_total/t_mr (E, F, B) and trans_level (E, F, L, B)
-      (present only when want_trans_level).
-    """
-    alpha_mid = 0.5 * (alpha[:, :-1] + alpha[:, 1:])             # (F, L-1, B)
-    return downwelling_tb_lb_from_alpha_mid(alpha_mid, ds_km, t_k, f_ghz,
-                                            t_cosmic, want_trans_level)
-
-
-def downwelling_tb_lb_from_alpha_mid(alpha_mid, ds_km, t_k, f_ghz,
-                                     t_cosmic=phys.T_COSMIC,
-                                     want_trans_level=True):
-    """Lanes-batch multi-elevation RTE from layer-mean extinction directly.
-
-    Shared core for the LBL (level absorption averaged to layers) and the
-    fast predictor-regression operator (which predicts layer extinction,
-    the RTTOV-gb formulation, RTTOV_gb_processing.py:167-305).
-
-    Args:
-      alpha_mid: (F, L-1, B) layer-mean extinction [Np/km].
-      ds_km: (E, L-1, B); t_k: (L, B); f_ghz: (F,).
-    """
-    f = f_ghz[:, None, None]
-    fb = f_ghz[:, None]
-    b = planck_tb(t_k[None], f)                                  # (F, L, B)
-    b_bot, b_top = b[:, :-1], b[:, 1:]
-    cosmic0 = planck_tb(t_cosmic, fb)
-
-    # Prefix sums along the level axis as ONE lower-triangular matmul over
-    # all (elevation, channel) pairs: on TPU this runs on the MXU (HIGHEST
-    # precision = exact fp32 via multi-pass bf16) and beats the VPU
-    # sublane-axis cumsum by a wide margin — and a single einsum instance
-    # keeps XLA compile time flat in the number of elevations.
-    lm1 = alpha_mid.shape[1]
-    tril = jnp.tril(jnp.ones((lm1, lm1), alpha_mid.dtype))
-
-    dtau = alpha_mid[None] * ds_km[:, None]                      # (E,F,L-1,B)
-    ctau = jnp.einsum("kl,eflb->efkb", tril, dtau,
-                      precision=jax.lax.Precision.HIGHEST)
-    e_ctau = jnp.exp(-ctau)
-    # trans to the *bottom* of layer l is exp(-ctau_{l-1}).
-    trans_below = jnp.concatenate(
-        [jnp.ones_like(e_ctau[:, :, :1]), e_ctau[:, :, :-1]], axis=-2)
-    tau_total = ctau[:, :, -1]                                   # (E, F, B)
-    trans_total = e_ctau[:, :, -1]
-
-    g_bot, g_top = _emission_factors(dtau)
-    atm = jnp.sum((g_bot * b_bot[None] + g_top * b_top[None]) * trans_below,
-                  axis=-2)                                       # (E, F, B)
-
-    tb = inverse_planck_tb(atm + cosmic0 * trans_total, fb)
-    t_mr = inverse_planck_tb(atm / jnp.maximum(1.0 - trans_total, 1e-10), fb)
-    out = {"tb": tb, "tau_total": tau_total, "t_mr": t_mr}
-    if want_trans_level:
-        out["trans_level"] = jnp.concatenate(
-            [jnp.ones_like(e_ctau[:, :, :1]), e_ctau], axis=-2)
-    return out
 
 
 def _planck_dT(t_k, f):
@@ -293,7 +176,7 @@ def downwelling_tb_adjoint(alpha, ds_km, t_k, f_ghz, t_cosmic=phys.T_COSMIC):
     """Hand-written adjoint of the downwelling RTE: exact dTB/d(alpha, t, ds)
     for every (batch, elevation, frequency) in one vectorized pass.
 
-    The TPU-native replacement for RTTOV-gb's hand-coded Fortran K/adjoint
+    The replacement for RTTOV-gb's hand-coded Fortran K/adjoint
     (the reference parses its K-matrix from text output,
     RTTOV_gb_processing.py:287-301).  Autodiff through the cumulative-
     opacity scan materializes large reverse-mode intermediates; the closed

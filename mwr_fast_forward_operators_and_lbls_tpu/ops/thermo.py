@@ -1,6 +1,6 @@
 """Vectorized thermodynamic / humidity conversions (JAX).
 
-TPU-native re-implementation of the conversion helpers the reference keeps in
+JAX re-implementation of the conversion helpers the reference keeps in
 two places: the Clausius-Clapeyron family in
 /root/reference/python_src/preproc/preprocessing4all.py:104-152 and the wider
 library in /root/reference/python_src/merge_data_into_netCDF/Sc_module.py:79-314.

@@ -4,12 +4,12 @@ The reference has no distributed execution at all — its hot loop is a
 sequential Python nest (/root/reference/python_src/proc/
 PyRTlib_processing.py:99-151) and its only "batching" is a 20-profile
 file-size workaround (/root/reference/python_src/proc/
-RTTOV_gb_processing.py:33,445).  The TPU framework treats scale as a
+RTTOV_gb_processing.py:33,445).  This framework treats scale as a
 first-class axis instead: the workload is embarrassingly parallel over
 profiles x angles (the `data` axis) and over monochromatic frequencies
 (the `spectral` axis — this domain's "sequence" dimension, SURVEY.md
-section 5), so a 2-D mesh covers every configuration from 1 chip to a
-multi-host pod slice.
+section 5), so a 2-D mesh covers every configuration from one device to a
+multi-host cluster.
 
 Axes:
   data:     profiles (and their elevation/azimuth fan-out) — pure DP;
@@ -52,9 +52,11 @@ def make_mesh(devices: Sequence[jax.Device] | None = None,
     """Build a (data, spectral) mesh over the given (default: all) devices.
 
     If `data` is None the data axis absorbs every device not claimed by
-    `spectral`.  Device order follows `jax.devices()`, which on TPU pods
-    enumerates ICI-contiguous devices first — so both axes ride ICI within a
-    slice and only the outermost data dimension ever crosses DCN.
+    `spectral`.  Device order follows `jax.devices()`.  The GPUs of one host
+    are joined all to all by NVLink, every pair at the same rate, so the
+    mesh shape follows the algorithm alone: `data` for the profile batch
+    (no traffic but output gathers), `spectral` for the frequency grid (the
+    SRF reduction crosses it).
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     n = len(devices)

@@ -51,9 +51,7 @@ def measure(per_device_batch: int = 256, n_levels: int = 180,
     if device_counts is None:
         device_counts = sorted({1, len(devices)})
     if config is None:
-        config = lbl.LBLConfig(
-            model="R24", outputs=("tb",),
-            use_pallas=jax.default_backend() == "tpu")
+        config = lbl.LBLConfig(model="R24", outputs=("tb",))
     n_elev = len(config.elevations_deg)
     results = []
     base_per_dev = base_rate_per_work = None

@@ -62,28 +62,19 @@ def forward_sharded_placed(placed: dict, mesh: Mesh,
                            config: lbl.LBLConfig = lbl.LBLConfig()) -> dict:
     """`forward_sharded` for inputs already padded + placed on the mesh
     (hot-loop form: no host-side padding or device_put per call)."""
-    if config.use_pallas:
-        # The fused-kernel path is per-shard compute with zero cross-device
-        # dependencies; shard_map gives each device its batch slice directly
-        # (GSPMD cannot partition through a pallas_call).
-        out_specs = {
-            k: P(*((DATA_AXIS,) + (None,) * (3 if k == "trans_level" else 2)))
-            for k in config.outputs}
-        fwd = jax.jit(jax.shard_map(
-            functools.partial(lbl.forward_batch, config=config),
-            mesh=mesh,
-            in_specs=({k: P(DATA_AXIS, None) for k in placed},),
-            out_specs=out_specs,
-            # pallas_call outputs carry no varying-mesh-axes metadata
-            check_vma=False,
-        ))
-    else:
-        out_sharding = NamedSharding(mesh, P(DATA_AXIS))
-        fwd = jax.jit(
-            functools.partial(lbl.forward_batch, config=config),
-            out_shardings={k: out_sharding for k in config.outputs},
-        )
-    return fwd(placed)
+    return _sharded_forward(mesh, config)(placed)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_forward(mesh: Mesh, config: lbl.LBLConfig):
+    """One jitted program per (mesh, config): a fresh `jax.jit` per call
+    would trace and lower the forward again every time (180 ms per call at
+    B=4096 on four H100s, PERF.md)."""
+    out_sharding = NamedSharding(mesh, P(DATA_AXIS))
+    return jax.jit(
+        functools.partial(lbl.forward_batch, config=config),
+        out_shardings={k: out_sharding for k in config.outputs},
+    )
 
 
 def forward_spectral_sharded(profiles: dict, f_ghz, mesh: Mesh,
@@ -94,8 +85,8 @@ def forward_spectral_sharded(profiles: dict, f_ghz, mesh: Mesh,
     `spectral` and profiles over `data` (BASELINE config 4, the 50k-point
     grid — this domain's long-context axis, SURVEY.md section 5).
 
-    Each device runs the fused spectral-kernel path (models/spectral.py) on
-    its frequency slice; the sweep is embarrassingly parallel and the only
+    Each device runs the chunked spectral path (models/spectral.py) on its
+    frequency slice; the sweep is embarrassingly parallel and the only
     cross-device traffic is the SRF-convolution reduction downstream.
     Returns tb of shape (B, E, F).
     """
@@ -128,8 +119,8 @@ def forward_spectral_sharded(profiles: dict, f_ghz, mesh: Mesh,
 def srf_convolve(tb_mono: jax.Array, weights: jax.Array) -> jax.Array:
     """Channel-SRF convolution: (..., F) x (C, F) -> (..., C).
 
-    A single MXU matmul; when tb_mono's F axis is sharded over `spectral`,
-    XLA lowers the contraction to a reduce-scatter/all-reduce over ICI.
+    A single matmul; when tb_mono's F axis is sharded over `spectral`, XLA
+    lowers the contraction to a reduce-scatter/all-reduce across devices.
     """
     wsum = jnp.sum(weights, axis=-1, keepdims=True)
     return jnp.einsum("...f,cf->...c", tb_mono,

@@ -27,9 +27,14 @@ def _load():
     _tried = True
     if not os.path.exists(_LIB_PATH) and os.path.exists(
             os.path.join(_NCIO_DIR, "Makefile")):
+        # Build under a name of this process's own and rename: processes
+        # that start together (test workers) each build, and none can load
+        # a library another one is still writing.
+        tmp = f"{os.path.basename(_LIB_PATH)}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["make", "-C", _NCIO_DIR], check=True,
-                           capture_output=True, timeout=120)
+            subprocess.run(["make", "-C", _NCIO_DIR, f"TARGET={tmp}"],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(os.path.join(_NCIO_DIR, tmp), _LIB_PATH)
         except Exception:
             return None
     if not os.path.exists(_LIB_PATH):

@@ -208,37 +208,9 @@ def test_qsd_resonance_lorentzian_limit():
 
 @pytest.mark.slow
 def test_sd_model_forward_batch_falls_back_from_pallas():
-    # use_pallas with an SD model must still produce TBs (XLA fallback path).
+    # The dispatched route with an SD model must produce TBs.
     from mwr_fast_forward_operators_and_lbls_tpu.models import lbl
     profs = lbl.demo_batch(2, n_levels=40)
-    cfg = lbl.LBLConfig(model="R19SD", elevations_deg=(90.0,), use_pallas=True)
+    cfg = lbl.LBLConfig(model="R19SD", elevations_deg=(90.0,))
     tb = np.asarray(lbl.forward_batch(profs, cfg)["tb"])
     assert tb.shape[0] == 2 and np.isfinite(tb).all()
-
-
-def test_fused_vs_xla_tb_on_chip():
-    """REAL-CHIP accuracy gate for the fused kernel's precision trades
-    (ADVICE r4 medium): the single-bf16-pass MXU far-fold and the MXU
-    hi/lo prefix-scan RTE are interpret-exact on CPU, so only a TPU run
-    exercises the actual Mosaic roundings.  Gate: fused TB vs the XLA
-    fp32 path < 0.05 K worst-case — BASELINE.md's TB-agreement budget
-    (measured 0.036 K worst-case on v5e this round, dominated by the
-    single-bf16-pass far-wing fold; the exact hi/lo 3-pass alternative
-    was measured 1.6x slower end-to-end — see _fold_k8).  Runs only
-    under MWR_TPU_TESTS=1 on a TPU backend (skipped in the default CPU
-    suite, where interpret mode makes it trivially true)."""
-    import jax
-
-    from mwr_fast_forward_operators_and_lbls_tpu.models import lbl
-
-    if jax.default_backend() != "tpu":
-        pytest.skip("real-chip gate; run with MWR_TPU_TESTS=1 on TPU")
-    profs = jax.device_put(lbl.demo_batch(128, n_levels=180),
-                           jax.devices()[0])
-    cfg_fused = lbl.LBLConfig(model="R24", use_pallas=True, outputs=("tb",))
-    cfg_xla = lbl.LBLConfig(model="R24", use_pallas=False, outputs=("tb",))
-    tb_f = np.asarray(lbl.forward_batch(profs, cfg_fused)["tb"])
-    tb_x = np.asarray(lbl.forward_batch(profs, cfg_xla)["tb"])
-    assert np.isfinite(tb_f).all() and np.isfinite(tb_x).all()
-    worst = np.abs(tb_f - tb_x).max()
-    assert worst < 0.05, f"on-chip fused-vs-XLA TB drift {worst:.4f} K"

@@ -93,25 +93,28 @@ def test_params_roundtrip(tmp_path, fitted):
                                   np.asarray(loaded["w"]))
 
 
-def test_lanes_serving_path_matches_batch():
+def test_fast_forward_batch_matches_single():
+    """The batched serving path against `fast_forward_single`, one profile
+    and elevation at a time, on every output."""
     profiles = lbl.demo_batch(5, n_levels=48)
     cfg = fast.FastConfig(elevations_deg=(90.0, 14.4))
     params = fast.fit_closed_form(profiles, cfg)
-    ref = fast.fast_forward_batch(params, profiles, cfg)
-    got = fast.fast_forward_batch(
-        params, profiles,
-        fast.FastConfig(elevations_deg=(90.0, 14.4), use_lanes=True))
-    assert set(got) == set(ref)
-    np.testing.assert_allclose(np.asarray(got["tb"]), np.asarray(ref["tb"]),
-                               rtol=0, atol=2e-2)
-    np.testing.assert_allclose(np.asarray(got["trans_level"]),
-                               np.asarray(ref["trans_level"]),
-                               rtol=0, atol=5e-3)
+    got = fast.fast_forward_batch(params, profiles, cfg)
+    assert set(got) == {"tb", "tau_total", "t_mr", "trans_level"}
+    for b in (0, 4):
+        for e, el in enumerate(cfg.elevations_deg):
+            ref = fast.fast_forward_single(
+                params, *(profiles[k][b] for k in ("z", "p", "t", "rho",
+                                                   "lwc")), el, cfg)
+            for k in got:
+                np.testing.assert_allclose(
+                    np.asarray(got[k])[b, e], np.asarray(ref[k]),
+                    rtol=1e-5, atol=2e-3, err_msg=f"{k} b={b} e={e}")
 
 
-def test_fast_lanes_fused_rte_matches_vmap_path():
-    """The serving path (fused Pallas RTE on layer-mean extinction) against
-    the per-profile vmap path."""
+def test_fast_forward_batch_output_selection():
+    """Asking for tb alone (the serving configuration) returns only tb, and
+    the same TBs as the full set of outputs."""
     import numpy as np
 
     from mwr_fast_forward_operators_and_lbls_tpu.models import fast, lbl
@@ -119,9 +122,10 @@ def test_fast_lanes_fused_rte_matches_vmap_path():
     train = lbl.demo_batch(16, n_levels=60)
     params, _ = fast.distill(train, fast.FastConfig(), steps=0)
     prof = lbl.demo_batch(8, n_levels=60, seed=3)
-    lanes = fast.fast_forward_batch(
-        params, prof, fast.FastConfig(use_lanes=True, outputs=("tb",)))
-    ref = fast.fast_forward_batch(
-        params, prof, fast.FastConfig(use_lanes=False, outputs=("tb",)))
-    err = float(np.max(np.abs(np.asarray(lanes["tb"]) - np.asarray(ref["tb"]))))
+    tb_only = fast.fast_forward_batch(
+        params, prof, fast.FastConfig(outputs=("tb",)))
+    full = fast.fast_forward_batch(params, prof, fast.FastConfig())
+    assert set(tb_only) == {"tb"}
+    err = float(np.max(np.abs(np.asarray(tb_only["tb"])
+                              - np.asarray(full["tb"]))))
     assert err < 2e-3, err

@@ -63,7 +63,7 @@ def test_frozen_absorption_fp64(model):
 
 @pytest.mark.parametrize("model", ["R98", "R24"])
 def test_frozen_absorption_fp32_close(model):
-    """The fp32 path (what the TPU runs) stays within fp32 conditioning of
+    """The fp32 path (what the accelerator runs) stays within fp32 conditioning of
     the frozen fp64 values."""
     g = _load(f"absorption_{model}.json")
     f = jnp.asarray(g["freqs_ghz"], jnp.float32)

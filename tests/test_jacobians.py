@@ -138,37 +138,3 @@ def test_fast_kmatrix_matches_finite_difference():
     fd = (tb(eps) - tb(-eps)) / (2 * eps)
     np.testing.assert_allclose(np.asarray(k["t"])[prof, :, :, lev],
                                fd[prof], rtol=0, atol=5e-3)
-
-
-@pytest.mark.slow
-def test_kmatrix_fused_tangent_kernel_matches_fallback():
-    """The dual-number Pallas tangent path (fused=True) must agree with the
-    XLA linearize fallback — same physics, fp32 reassociation apart; the far
-    -term series truncation (~2.5e-5 of wing terms) sets the tolerance."""
-    profiles = lbl.demo_batch(2, n_levels=24)
-    cfg = lbl.LBLConfig(model="R24", elevations_deg=(90.0, 19.2),
-                        freqs_ghz=(22.24, 31.4, 54.94))
-    k_fused = jacobians.kmatrix_batch_fast(profiles, cfg, fused=True)
-    k_ref = jacobians.kmatrix_batch_fast(profiles, cfg, fused=False)
-    for name in ("t", "rho", "lwc"):
-        got, ref = np.asarray(k_fused[name]), np.asarray(k_ref[name])
-        scale = np.maximum(np.abs(ref), np.abs(ref).max() * 1e-3)
-        assert np.max(np.abs(got - ref) / scale) < 5e-3, name
-
-
-def test_kmatrix_fused_lanes_smoke():
-    """Non-slow smoke of the production fused K-matrix pipeline (dual-number
-    tangent kernel + adjoint+assembly kernel, ADVICE r4): minimal shapes so
-    the interpret-mode run stays fast, asserting agreement with the XLA
-    linearize fallback on wrt=("t",)."""
-    profiles = lbl.demo_batch(1, n_levels=16)
-    cfg = lbl.LBLConfig(model="R24", elevations_deg=(90.0,),
-                        freqs_ghz=(54.94,))
-    k_fused = jacobians.kmatrix_batch_fast(profiles, cfg, wrt=("t",),
-                                           fused=True)
-    k_ref = jacobians.kmatrix_batch_fast(profiles, cfg, wrt=("t",),
-                                         fused=False)
-    got, ref = np.asarray(k_fused["t"]), np.asarray(k_ref["t"])
-    assert got.shape == ref.shape == (1, 1, 1, 16)
-    scale = np.maximum(np.abs(ref), np.abs(ref).max() * 1e-3)
-    assert np.max(np.abs(got - ref) / scale) < 5e-3

@@ -100,55 +100,60 @@ def test_flip_profile_roundtrip(demo_batch):
         np.testing.assert_array_equal(np.asarray(back[k]), np.asarray(demo_batch[k]))
 
 
-def test_pallas_lanes_path_matches_xla(demo_batch, small_cfg):
-    """The fused-kernel lanes-batch path (interpreted on CPU) must agree with
-    the reference XLA path on every output it produces."""
-    cfg_p = lbl.LBLConfig(model=small_cfg.model,
-                          elevations_deg=small_cfg.elevations_deg,
-                          use_pallas=True)
-    ref = lbl.forward_batch(demo_batch, small_cfg)
-    got = lbl.forward_batch(demo_batch, cfg_p)
-    assert set(got) == set(ref)
-    np.testing.assert_allclose(np.asarray(got["tb"]), np.asarray(ref["tb"]),
-                               rtol=0, atol=2e-2)
-    np.testing.assert_allclose(np.asarray(got["tau_total"]),
-                               np.asarray(ref["tau_total"]), rtol=1e-3, atol=5e-3)
-    np.testing.assert_allclose(np.asarray(got["trans_level"]),
-                               np.asarray(ref["trans_level"]), rtol=0, atol=5e-3)
+def test_forward_batch_matches_forward_single(demo_batch, small_cfg):
+    """The batched forward agrees with the per-(profile, elevation)
+    `forward_single` on every output."""
+    got = lbl.forward_batch(demo_batch, small_cfg)
+    assert set(got) == set(small_cfg.outputs)
+    p1 = {k: v[1] for k, v in demo_batch.items()}
+    sub = (22.24, 31.4, 58.0)
+    idx = [list(small_cfg.freqs_ghz).index(f) for f in sub]
+    single = lbl.forward_single(p1["z"], p1["p"], p1["t"], p1["rho"],
+                                p1["lwc"], jnp.asarray(sub), 4.2,
+                                small_cfg.model)
+    for k, v in single.items():
+        np.testing.assert_allclose(np.asarray(v),
+                                   np.asarray(got[k])[1, 2][idx],
+                                   rtol=1e-5, atol=2e-3, err_msg=k)
 
 
 @pytest.mark.parametrize("model", ["R98", "R03", "R16", "R17", "R19",
                                    "R19SD", "R20", "R20SD", "R24"])
 @pytest.mark.slow
-def test_pallas_lanes_path_matches_xla_all_nine(model):
+def test_forward_batch_all_nine_models_match_forward_single(model):
     """Every member of the nine-model sweep (old_merge2nc.py:417-435) —
     including the qSD variants and the second-order-mixing releases — runs
-    the fused path and agrees with the XLA reference."""
+    batched and agrees with `forward_single`."""
     batch = lbl.demo_batch(2, n_levels=64)
-    cfg_x = lbl.LBLConfig(model=model, elevations_deg=(90.0, 4.2),
-                          outputs=("tb",))
-    cfg_p = lbl.LBLConfig(model=model, elevations_deg=(90.0, 4.2),
-                          outputs=("tb",), use_pallas=True)
-    ref = np.asarray(lbl.forward_batch(batch, cfg_x)["tb"])
-    got = np.asarray(lbl.forward_batch(batch, cfg_p)["tb"])
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-2)
+    elevs = (90.0, 4.2)
+    cfg = lbl.LBLConfig(model=model, elevations_deg=elevs, outputs=("tb",))
+    got = np.asarray(lbl.forward_batch(batch, cfg)["tb"])
+    assert np.isfinite(got).all()
+    f = jnp.asarray(cfg.freqs_ghz)
+    for b in range(2):
+        for e, el in enumerate(elevs):
+            one = lbl.forward_single(*(batch[k][b] for k in
+                                       ("z", "p", "t", "rho", "lwc")),
+                                     f, el, model)
+            np.testing.assert_allclose(got[b, e], np.asarray(one["tb"]),
+                                       rtol=0, atol=2e-3)
 
 
 @pytest.mark.slow
-def test_pallas_lanes_path_pads_odd_batch(small_cfg):
-    """Batch sizes that are not lane-multiples are padded internally and
-    sliced back."""
-    cfg_p = lbl.LBLConfig(model=small_cfg.model,
-                          elevations_deg=small_cfg.elevations_deg,
-                          use_pallas=True, outputs=("tb",))
+def test_forward_batch_rows_are_independent(small_cfg):
+    """An odd batch gives the same rows as the same profiles one at a
+    time (nothing in the batch layout mixes profiles)."""
+    cfg = lbl.LBLConfig(model=small_cfg.model,
+                        elevations_deg=small_cfg.elevations_deg,
+                        outputs=("tb",))
     batch = lbl.demo_batch(3, n_levels=64)
-    ref = lbl.forward_batch(batch, lbl.LBLConfig(
-        model=small_cfg.model, elevations_deg=small_cfg.elevations_deg,
-        outputs=("tb",)))
-    got = lbl.forward_batch(batch, cfg_p)
+    got = lbl.forward_batch(batch, cfg)
     assert got["tb"].shape == (3, 3, 14)
-    np.testing.assert_allclose(np.asarray(got["tb"]), np.asarray(ref["tb"]),
-                               rtol=0, atol=2e-2)
+    for i in range(3):
+        one = lbl.forward_batch({k: v[i:i + 1] for k, v in batch.items()},
+                                cfg)
+        np.testing.assert_allclose(np.asarray(got["tb"])[i:i + 1],
+                                   np.asarray(one["tb"]), rtol=0, atol=2e-3)
 
 
 def test_fp32_pipeline_within_baseline_tolerance(demo_batch):
@@ -156,7 +161,7 @@ def test_fp32_pipeline_within_baseline_tolerance(demo_batch):
 
     pyrtlib cannot be installed in this environment, so the controlled
     proxy is the same spectroscopy + RTE evaluated in float64: the fp32
-    Pallas fast path must stay within half the 0.05 K budget of the
+    production path must stay within half the 0.05 K budget of the
     float64 truth, leaving the other half for genuine model differences.
     """
     import jax
@@ -166,8 +171,7 @@ def test_fp32_pipeline_within_baseline_tolerance(demo_batch):
     # zenith + mid + the lowest slant cover the airmass range; the full
     # 10-elevation sweep triples the float64 XLA forward for no extra claim
     elevs = (90.0, 30.0, 4.2)
-    cfg32 = lbl.LBLConfig(model="R24", use_pallas=True, outputs=("tb",),
-                          elevations_deg=elevs)
+    cfg32 = lbl.LBLConfig(model="R24", outputs=("tb",), elevations_deg=elevs)
     tb32 = np.asarray(lbl.forward_batch(demo_batch, cfg32)["tb"])
     with jax.enable_x64(True):
         cfg64 = lbl.LBLConfig(model="R24", dtype="float64", outputs=("tb",),
@@ -178,19 +182,27 @@ def test_fp32_pipeline_within_baseline_tolerance(demo_batch):
 
 
 @pytest.mark.slow
-def test_pallas_lanes_path_include_o3_matches_xla():
+def test_forward_batch_include_o3_matches_forward_single():
     """The optional ozone term (ARMS-gb parity, ARMS_gb_processing.py:94-99)
-    also runs the fused kernel — the last include_o3 XLA fallback is gone."""
+    runs batched as in `forward_single` with the same ozone profile."""
+    from mwr_fast_forward_operators_and_lbls_tpu.constants import afgl
+
     batch = lbl.demo_batch(2, n_levels=64)
-    cfg_x = lbl.LBLConfig(model="R24", elevations_deg=(90.0, 4.2),
-                          outputs=("tb",), include_o3=True)
-    cfg_p = lbl.LBLConfig(model="R24", elevations_deg=(90.0, 4.2),
-                          outputs=("tb",), include_o3=True, use_pallas=True)
-    ref = np.asarray(lbl.forward_batch(batch, cfg_x)["tb"])
-    got = np.asarray(lbl.forward_batch(batch, cfg_p)["tb"])
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-2)
+    clim = afgl.CLIMATOLOGIES["midlatitude_summer"]
+    batch["o3_ppmv"] = jnp.asarray(np.interp(
+        np.asarray(batch["z"]) / 1000.0, clim["z_km"], clim["o3_ppmv"]),
+        jnp.float32)
+    cfg = lbl.LBLConfig(model="R24", elevations_deg=(90.0, 4.2),
+                        outputs=("tb",), include_o3=True)
+    got = np.asarray(lbl.forward_batch(batch, cfg)["tb"])
+    one = lbl.forward_single(*(batch[k][1] for k in
+                               ("z", "p", "t", "rho", "lwc")),
+                             jnp.asarray(cfg.freqs_ghz), 4.2, "R24",
+                             o3_ppmv=batch["o3_ppmv"][1])
+    np.testing.assert_allclose(got[1, 1], np.asarray(one["tb"]),
+                               rtol=0, atol=2e-3)
     # and O3 must actually change the TB vs the no-O3 configuration
     no_o3 = np.asarray(lbl.forward_batch(
         batch, lbl.LBLConfig(model="R24", elevations_deg=(90.0, 4.2),
-                             outputs=("tb",), use_pallas=True))["tb"])
+                             outputs=("tb",)))["tb"])
     assert np.abs(got - no_o3).max() > 1e-5

@@ -5,7 +5,10 @@ import numpy as np
 import pytest
 
 from mwr_fast_forward_operators_and_lbls_tpu.data.dataset import Dataset
-from mwr_fast_forward_operators_and_lbls_tpu.eval import report
+
+# the figure stage needs matplotlib, which the forward path does not
+pytest.importorskip("matplotlib")
+from mwr_fast_forward_operators_and_lbls_tpu.eval import report  # noqa: E402
 
 
 def _ds(n=8):

@@ -88,32 +88,37 @@ def test_upwelling_opaque_matches_downwelling_limit():
     np.testing.assert_allclose(np.asarray(up["tb"]), t_iso, atol=0.05)
 
 
-def test_fused_rte_kernel_matches_xla():
-    """The fused Pallas RTE (interpret mode on CPU) against the XLA
-    lanes-batch reference."""
+def test_spectral_rte_matches_channel_rte():
+    """The two XLA formulations of the downwelling RTE that the framework
+    keeps — the per-profile `rte.downwelling_tb` (channel forward) and the
+    frequency-minor batch RTE of the spectral path — agree on the same
+    absorption, including an opaque channel."""
     import numpy as np
+    import jax
     import jax.numpy as jnp
 
+    from mwr_fast_forward_operators_and_lbls_tpu.models import spectral
     from mwr_fast_forward_operators_and_lbls_tpu.ops import rte
-    from mwr_fast_forward_operators_and_lbls_tpu.ops.pallas.rte_kernel import (
-        downwelling_lb_fused)
 
     rng = np.random.default_rng(0)
-    nf, l, b, e = 5, 60, 128, 3
-    alpha = jnp.asarray(np.abs(rng.normal(0.05, 0.05, (nf, l, b))).astype("f4"))
-    ds = jnp.asarray(np.abs(rng.normal(0.5, 0.1, (e, l - 1, b))).astype("f4"))
-    t = jnp.asarray((250 + 40 * rng.random((l, b))).astype("f4"))
-    freqs = tuple(np.linspace(20.0, 60.0, nf).tolist())
-    ref = rte.downwelling_tb_lb_multi(alpha, ds, t,
-                                      jnp.asarray(freqs, jnp.float32),
-                                      want_trans_level=False)
-    got = downwelling_lb_fused(freqs, alpha, ds, t)
-    for k in ("tb", "tau_total", "t_mr"):
-        assert float(jnp.max(jnp.abs(ref[k] - got[k]))) < 2e-3, k
+    nf, l, b = 5, 60, 4
+    alpha = np.abs(rng.normal(0.05, 0.05, (b, l, nf))).astype("f4")
+    alpha[..., -1] *= 40.0
+    alpha = jnp.asarray(alpha)
+    ds = jnp.asarray(np.abs(rng.normal(0.5, 0.1, (b, l - 1))).astype("f4"))
+    t = jnp.asarray((250 + 40 * rng.random((b, l))).astype("f4"))
+    f = jnp.asarray(np.linspace(20.0, 60.0, nf), jnp.float32)
+    tb, tau = spectral._rte_freq_minor(alpha, ds, t, f)
+    ref = jax.vmap(lambda a, d, tt: rte.downwelling_tb(a.T, d, tt, f))(
+        alpha, ds, t)
+    np.testing.assert_allclose(np.asarray(tb), np.asarray(ref["tb"]),
+                               rtol=0, atol=2e-3)
+    np.testing.assert_allclose(np.asarray(tau), np.asarray(ref["tau_total"]),
+                               rtol=1e-5)
 
 
 def test_downwelling_adjoint_matches_autodiff():
-    """The closed-form RTE adjoint (suffix-sum form, the TPU-native
+    """The closed-form RTE adjoint (suffix-sum form, the native
     replacement for RTTOV-gb's hand-written Fortran K code) must equal
     reverse-mode AD through the production RTE to fp32 round-off."""
     rng = np.random.default_rng(3)

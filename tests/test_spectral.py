@@ -54,77 +54,3 @@ def test_spectrum_line_structure_and_srf(profiles):
     assert tb_c.shape == (3, 1, 2)
     np.testing.assert_allclose(np.asarray(tb_c[..., 0]),
                                np.asarray(out["tb"].mean(-1)), rtol=1e-5)
-
-
-@pytest.mark.slow
-def test_spectral_sd_model_matches_xla_at_line_center():
-    """The spectral kernel evaluates the qSD line shape for the SD releases
-    (previously silently Lorentzian): near 22.235 GHz the R20SD spectrum
-    must match the XLA h2o path and differ from plain R20."""
-    import jax.numpy as jnp
-
-    from mwr_fast_forward_operators_and_lbls_tpu.constants.h2o_lines import (
-        H2O_MODELS)
-    from mwr_fast_forward_operators_and_lbls_tpu.ops.absorption import (
-        h2o_absorption, n2_absorption, o2_absorption)
-    from mwr_fast_forward_operators_and_lbls_tpu.ops.pallas.spectral_kernel \
-        import absorption_spectral
-
-    f = jnp.asarray(np.linspace(21.0, 23.5, 128), jnp.float32)
-    n = 8
-    p = jnp.full(n, 1000.0, jnp.float32)
-    t = jnp.full(n, 290.0, jnp.float32)
-    rho = jnp.full(n, 7.5, jnp.float32)
-    lwc = jnp.zeros(n, jnp.float32)
-
-    got = np.asarray(absorption_spectral(f, p, t, rho, lwc, "R20SD"))[0]
-    e = 7.5 * 290.0 / 217.0
-    ref = np.asarray(
-        h2o_absorption(f, 1000.0, 290.0, 7.5, H2O_MODELS["R20SD"])
-        + o2_absorption(f, 1000.0, 290.0, 7.5)
-        + n2_absorption(f, 1000.0 - e, 290.0, variant="R20SD"))
-    np.testing.assert_allclose(got, ref, rtol=5e-3)
-
-    plain = np.asarray(absorption_spectral(f, p, t, rho, lwc, "R20"))[0]
-    peak = np.argmin(np.abs(np.asarray(f) - 22.235))
-    assert got[peak] > plain[peak] * 1.001   # qSD narrowing raises the peak
-
-
-_F_RANGE_CASES = ((20.0, 64.0),)
-
-
-def test_f_range_static_folding_matches_runtime_masks():
-    """The static f_range promise (mask folding, line pruning, deeper O2
-    merge) must reproduce the fully-runtime-masked kernel to fp32
-    reassociation across the MWR band; the boundary-straddling case
-    (runtime masks surviving the fold) runs in the slow tier
-    (test_f_range_boundary_straddling_slow)."""
-    from mwr_fast_forward_operators_and_lbls_tpu.ops.pallas.spectral_kernel \
-        import absorption_spectral
-
-    rng = np.random.default_rng(3)
-    n = 32
-    p = jnp.asarray(np.linspace(1000.0, 5.0, n), jnp.float32)
-    t = jnp.asarray(250.0 + 30.0 * rng.random(n), jnp.float32)
-    rho = jnp.asarray(8.0 * rng.random(n), jnp.float32)
-    lwc = jnp.asarray(0.2 * rng.random(n), jnp.float32)
-    for lo, hi in _F_RANGE_CASES:
-        f = jnp.asarray(np.linspace(lo, hi, 256), jnp.float32)
-        base = np.asarray(absorption_spectral(f, p, t, rho, lwc, "R24"))
-        fold = np.asarray(absorption_spectral(f, p, t, rho, lwc, "R24",
-                                              f_range=(lo, hi)))
-        np.testing.assert_allclose(fold, base, rtol=2e-5, atol=1e-12,
-                                   err_msg=f"range {(lo, hi)}")
-
-
-@pytest.mark.slow
-def test_f_range_boundary_straddling_slow():
-    """Boundary-straddling f_range: some Clough masks stay runtime and
-    out-of-range lines prune — must still match the unfolded kernel."""
-    global _F_RANGE_CASES
-    saved = _F_RANGE_CASES
-    try:
-        _F_RANGE_CASES = ((600.0, 800.0),)
-        test_f_range_static_folding_matches_runtime_masks()
-    finally:
-        _F_RANGE_CASES = saved
